@@ -248,16 +248,18 @@ def pod5_get_signal(path: str, read_id: str, batch: int | None = None,
 def write_pod5(path: str, reads: list[tuple[str, np.ndarray]],
                calibration_offset: float = 0.0,
                calibration_scale: float = 0.1875,
-               chunk_samples: int = 102400) -> None:
+               chunk_samples: int = 102400, compress: bool = True) -> None:
     """Write a pod5-structured container (signature + embedded Arrow read and
-    signal tables with VBZ-compressed rows).
+    signal tables with VBZ-compressed rows, or with ``compress=False`` the
+    format's uncompressed ``large_list<int16>`` rows, which need no zstd).
 
     Readable by this framework's scanner-based reader; ecosystem tools that
     require the flatbuffer footer should convert via `pod5` tooling.
     ``reads``: (read_id, signal_pA).
     """
-    if not (HAVE_ARROW and HAVE_ZSTD):
-        raise RuntimeError("pyarrow+zstandard required for pod5 writing")
+    if not (HAVE_ARROW and (HAVE_ZSTD or not compress)):
+        raise RuntimeError("pyarrow (+zstandard to compress) required for "
+                           "pod5 writing")
     sig_read_ids = []
     sig_bytes = []
     sig_counts = []
@@ -275,7 +277,8 @@ def write_pod5(path: str, reads: list[tuple[str, np.ndarray]],
             sig_read_ids.append(uuid.UUID(read_id).bytes
                                 if _is_uuid(read_id) else
                                 uuid.uuid5(uuid.NAMESPACE_DNS, read_id).bytes)
-            sig_bytes.append(vbz_compress(chunk))
+            sig_bytes.append(vbz_compress(chunk) if compress
+                             else chunk.tolist())
             sig_counts.append(chunk.shape[0])
             rows_for_read.append(row)
             row += 1
@@ -286,7 +289,8 @@ def write_pod5(path: str, reads: list[tuple[str, np.ndarray]],
 
     signal_table = pa.table({
         "read_id": pa.array(sig_read_ids, type=pa.binary(16)),
-        "signal": pa.array(sig_bytes, type=pa.large_binary()),
+        "signal": pa.array(sig_bytes, type=(
+            pa.large_binary() if compress else pa.large_list(pa.int16()))),
         "samples": pa.array(sig_counts, type=pa.uint32()),
     })
     read_table = pa.table({

@@ -4,7 +4,7 @@
 The reference ships its trained detect CNN as a TF SavedModel
 (``dnn_models/detect_model_BrdUEdU_DNAr10_4_1``; loaded through the TF C API
 in src/tensor.cpp:24-105).  This environment has no TensorFlow, and a
-TPU-native framework should not need one, so this module parses the bundle
+JAX framework should not need one, so this module parses the bundle
 format directly:
 
 * ``variables.index`` is a leveldb-format SSTable whose values are serialized

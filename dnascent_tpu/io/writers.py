@@ -22,15 +22,16 @@ from ..pipeline.detect import DetectedRead
 
 
 def detect_header(bam: str, reference: str, index: str, threads: int,
-                  quality: int, length: int, use_gpu: bool = False,
+                  quality: int, length: int, compute: str = "CPU",
                   mode: str = "CNN") -> str:
+    """``compute`` names the platform that ran detect (GPU or CPU)."""
     now = datetime.datetime.now().strftime("%d/%m/%Y %H:%M:%S")
     out = []
     out.append(f"#Alignment {bam}")
     out.append(f"#Genome {reference}")
     out.append(f"#Index {index}")
     out.append(f"#Threads {threads}")
-    out.append(f"#Compute {'TPU' if use_gpu else 'CPU'}")
+    out.append(f"#Compute {compute}")
     out.append(f"#Mode {mode}")
     out.append(f"#MappingQuality {quality}")
     out.append(f"#MappingLength {length}")

@@ -1,4 +1,4 @@
-"""The detect CNN: per-position BrdU/EdU/thymidine classifier.
+"""The detect CNN interface: per-position BrdU/EdU/thymidine classifier.
 
 The reference runs a TensorFlow SavedModel through the TF C API with three
 inputs and one output (reference: src/detect.cpp:577-732, src/tensor.cpp):
@@ -12,24 +12,19 @@ inputs and one output (reference: src/detect.cpp:577-732, src/tensor.cpp):
   output:  (L, 3) probabilities ordered [unmodified-T, BrdU, EdU]
            (detect.cpp:686-714)
 
-The SavedModel weights are not shipped in the reference mount (only
-variables.index survives), so this module defines a TPU-first architecture
-with the same interface — embeddings for the two sequence streams, a masked
-encoder over the 20 raw samples, and a dilated residual convolution stack
-(local receptive field ~500 positions, so ultra-long reads can be
-sequence-sharded with a halo) — plus a training loop entry point so the
-model can be fit from trainCNN-style labelled data.
-
-All dense/conv compute runs in bfloat16 on the MXU with float32 parameters
-and a float32 softmax head.
+This module holds what every model shares and needs no flax: the input
+constants and u8 signal quantisation, the jitted forward wrappers the detect
+pipeline calls (they only use ``model.apply``), and npz parameter I/O.  The
+models themselves are ``models/reference_cnn`` (the reference's trained
+topology) and ``models/detect_cnn`` (the in-framework flax DetectCNN, imported
+only when it is used).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any
+from collections.abc import Mapping
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,105 +47,27 @@ def quantise_signal_u8(sig: np.ndarray) -> np.ndarray:
     return np.where(sig == 0.0, np.uint8(0), q)
 
 
-class ConvBlock(nn.Module):
-    """Pre-norm dilated residual conv block (runs on the MXU in bf16)."""
-
-    features: int
-    kernel: int = 5
-    dilation: int = 1
-
-    @nn.compact
-    def __call__(self, x):
-        h = nn.LayerNorm(dtype=jnp.float32)(x)
-        h = h.astype(jnp.bfloat16)
-        h = nn.Conv(self.features, (self.kernel,),
-                    kernel_dilation=(self.dilation,),
-                    dtype=jnp.bfloat16, param_dtype=jnp.float32)(h)
-        h = nn.gelu(h)
-        h = nn.Conv(self.features, (1,), dtype=jnp.bfloat16,
-                    param_dtype=jnp.float32)(h)
-        return x + h.astype(x.dtype)
+def create_model(**kwargs):
+    """The in-framework DetectCNN (imports flax; see models/detect_cnn)."""
+    from .detect_cnn import create_model as _create
+    return _create(**kwargs)
 
 
-class DetectCNN(nn.Module):
-    """Per-position analogue classifier with the reference's input contract.
-
-    Default sizing is matched to the reference model's scale: its SavedModel
-    manifest (reference_cnn_manifest.json, from dnn_models/.../variables.index)
-    shows a ~64-channel separable-conv stack, so a 128-channel dense-conv
-    stack with 8 dilated blocks (receptive field ~265 positions) carries
-    comfortably more capacity while keeping the MXU time per batch small."""
-
-    d_model: int = 128
-    d_core: int = 64
-    d_residual: int = 32
-    d_signal: int = 96
-    dilations: tuple = (1, 2, 4, 8, 16, 32, 1, 2)
-    kernel: int = 5
-
-    @nn.compact
-    def __call__(self, core_idx, residual_idx, signal):
-        """core_idx/residual_idx: (B, L) int32; signal: (B, L, RAWDEPTH)
-        float (f16 accepted for cheap host->device transfer).
-        Returns (B, L, 3) float32 class probabilities."""
-        if signal.dtype == jnp.uint8:
-            q = signal.astype(jnp.float32)
-            signal = jnp.where(
-                q == 0.0, 0.0,
-                (q - 1.0) / SIG_QUANT_SCALE + SIG_QUANT_LO)
-        signal = signal.astype(jnp.float32)
-        core_idx = core_idx.astype(jnp.int32)
-        residual_idx = residual_idx.astype(jnp.int32)
-        mask = (signal != 0.0)
-        nvalid = jnp.maximum(mask.sum(-1, keepdims=True), 1)
-        mean = jnp.sum(signal * mask, -1, keepdims=True) / nvalid
-        var = jnp.sum(((signal - mean) * mask) ** 2, -1, keepdims=True) / nvalid
-        sig_feats = jnp.concatenate(
-            [signal, mask.astype(jnp.float32), mean,
-             jnp.sqrt(var + 1e-6),
-             jnp.log(nvalid.astype(jnp.float32))], axis=-1)
-        s = nn.Dense(self.d_signal, dtype=jnp.bfloat16,
-                     param_dtype=jnp.float32)(sig_feats.astype(jnp.bfloat16))
-        s = nn.gelu(s)
-
-        c = nn.Embed(CORE_VOCAB, self.d_core, dtype=jnp.bfloat16,
-                     param_dtype=jnp.float32)(core_idx)
-        r = nn.Embed(RESIDUAL_VOCAB, self.d_residual, dtype=jnp.bfloat16,
-                     param_dtype=jnp.float32)(residual_idx)
-
-        x = jnp.concatenate([s, c, r], axis=-1)
-        x = nn.Dense(self.d_model, dtype=jnp.bfloat16,
-                     param_dtype=jnp.float32)(x)
-        x = x.astype(jnp.float32)
-        for d in self.dilations:
-            x = ConvBlock(self.d_model, self.kernel, d)(x)
-        x = nn.LayerNorm(dtype=jnp.float32)(x)
-        logits = nn.Dense(N_CLASSES, dtype=jnp.float32,
-                          param_dtype=jnp.float32)(x)
-        return jax.nn.softmax(logits, axis=-1)
-
-    def receptive_field(self) -> int:
-        return 1 + sum((self.kernel - 1) * d for d in self.dilations)
-
-
-def create_model(**kwargs) -> DetectCNN:
-    return DetectCNN(**kwargs)
-
-
-def init_params(model: DetectCNN, rng: jax.Array, length: int = 256):
-    dummy = (jnp.zeros((1, length), jnp.int32),
-             jnp.zeros((1, length), jnp.int32),
-             jnp.zeros((1, length, RAWDEPTH), jnp.float32))
-    return model.init(rng, *dummy)
+def default_params(model=None, seed: int = 0):
+    """Deterministic fallback DetectCNN parameters used when no trained
+    weights are available (the reference's weight files are absent from
+    its mount)."""
+    from .detect_cnn import default_params as _default
+    return _default(model, seed)
 
 
 @functools.partial(jax.jit, static_argnames=("model",))
-def apply_model(model: DetectCNN, params, core_idx, residual_idx, signal):
+def apply_model(model, params, core_idx, residual_idx, signal):
     return model.apply(params, core_idx, residual_idx, signal)
 
 
 @functools.partial(jax.jit, static_argnames=("model",))
-def apply_model_f16(model: DetectCNN, params, core_idx, residual_idx, signal):
+def apply_model_f16(model, params, core_idx, residual_idx, signal):
     """f16 output transfer: halves the probability download (quantised to
     uint8 for modbam anyway; human-readable prints are model outputs, not
     reference-parity values)."""
@@ -180,7 +97,7 @@ def _sig_from_flat(flat_sig_u8, counts_u8, B, L):
 
 
 @functools.partial(jax.jit, static_argnames=("model",))
-def apply_model_flat_f16(model: DetectCNN, params, core_idx, residual_idx,
+def apply_model_flat_f16(model, params, core_idx, residual_idx,
                          flat_sig_u8, counts_u8, t_delta_u16):
     """Transfer-lean forward for slow interconnects.
 
@@ -201,7 +118,7 @@ def apply_model_flat_f16(model: DetectCNN, params, core_idx, residual_idx,
 
 
 @functools.partial(jax.jit, static_argnames=("model",))
-def apply_model_flat_f16_packed(model: DetectCNN, params, core_idx,
+def apply_model_flat_f16_packed(model, params, core_idx,
                                 residual_idx, sig_payload, sig_widths,
                                 sig_mins, counts_u8, t_delta_u16):
     """Same as :func:`apply_model_flat_f16` but the flat u8 signal stream
@@ -218,7 +135,7 @@ def apply_model_flat_f16_packed(model: DetectCNN, params, core_idx,
 
 
 @functools.partial(jax.jit, static_argnames=("model",))
-def apply_model_from_flat_ranks_f16(model: DetectCNN, params, ks_base,
+def apply_model_from_flat_ranks_f16(model, params, ks_base,
                                     ks_delta, flat_off, n_pos, flat_ranks,
                                     flat_sig_u8, counts_u8, t_delta_u16):
     """Most transfer-lean forward: the two sequence-index planes are derived
@@ -261,7 +178,7 @@ def _idx_planes_from_ranks(ks_base, ks_delta, flat_off, n_pos, flat_ranks):
 
 
 @functools.partial(jax.jit, static_argnames=("model", "L"))
-def apply_model_from_flat_ranks_f16_packed(model: DetectCNN, params, ks_base,
+def apply_model_from_flat_ranks_f16_packed(model, params, ks_base,
                                            flat_off, n_pos, flat_ranks,
                                            sig_payload, sig_widths, sig_mins,
                                            aux_payload, aux_widths, aux_mins,
@@ -295,22 +212,30 @@ def apply_model_from_flat_ranks_f16_packed(model: DetectCNN, params, ks_base,
 # Parameter persistence (npz; orbax used for training checkpoints elsewhere)
 # ---------------------------------------------------------------------------
 
+def _flatten(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, key + "/"))
+        else:
+            out[key] = v
+    return out
+
+
 def save_params(params, path: str) -> None:
-    import flax
-    flat = flax.traverse_util.flatten_dict(
-        flax.core.unfreeze(params), sep="/")
-    np.savez(path, **{k: np.asarray(v) for k, v in flat.items()})
+    """Write a parameter tree as an npz of '/'-joined paths."""
+    np.savez(path, **{k: np.asarray(v) for k, v in _flatten(params).items()})
 
 
-def load_params(path: str):
-    import flax
+def load_params(path: str) -> dict:
+    """Read :func:`save_params` output back into a nested dict."""
+    tree: dict = {}
     with np.load(path) as data:
-        flat = {k: jnp.asarray(data[k]) for k in data.files}
-    return flax.core.freeze(flax.traverse_util.unflatten_dict(flat, sep="/"))
-
-
-def default_params(model: DetectCNN | None = None, seed: int = 0):
-    """Deterministic fallback parameters used when no trained weights are
-    available (the reference's weight files are absent from its mount)."""
-    model = model or create_model()
-    return init_params(model, jax.random.PRNGKey(seed))
+        for key in data.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = jnp.asarray(data[key])
+    return tree

@@ -22,8 +22,9 @@ The trained checkpoint decomposes exactly into (see
 The mounted reference carries only ``variables.index`` (shapes/dtypes, no
 values) and no ``saved_model.pb`` (no graph topology), so this module
 validates architecture against the manifest and exports raw tensors; it does
-not re-instantiate the exact Keras graph.  The TPU-native flagship model
-(:mod:`dnascent_tpu.models.cnn`) is trained in-framework via ``trainCNN``.
+not re-instantiate the exact Keras graph; :mod:`dnascent_tpu.models.reference_cnn`
+runs the tensors in JAX.  The in-framework DetectCNN
+(:mod:`dnascent_tpu.models.detect_cnn`) is trained via ``trainCNN``.
 """
 
 from __future__ import annotations

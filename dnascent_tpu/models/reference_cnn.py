@@ -1,4 +1,4 @@
-"""The reference's trained detect-CNN architecture, runnable on TPU.
+"""The reference's trained detect-CNN architecture, in JAX.
 
 The reference ships its product-quality classifier as a TF SavedModel
 (``dnn_models/detect_model_BrdUEdU_DNAr10_4_1``, loaded via the TF C API in
@@ -34,10 +34,10 @@ with a parameter-free op.  This reconstruction zero-pads the 18 channels to
 64 (the canonical parameter-free channel lift).  Everything with weights
 loads 1:1 from the SavedModel bundle; with the reference's
 ``variables.data-*`` shards present, ``detect --model <savedmodel-dir>``
-runs this topology on TPU.
+runs this topology.
 
-Convolutions run in bfloat16 on the MXU with float32 parameters; the GRU,
-BatchNorm statistics, and softmax head stay float32.
+Convolutions run in bfloat16 with float32 parameters; the GRU (full-f32
+products), BatchNorm statistics, and softmax head stay float32.
 """
 
 from __future__ import annotations
@@ -91,9 +91,10 @@ _BN_CH[75] = 256
 _BN_CH[77] = 128
 
 _BN_EPS = 1e-3   # Keras BatchNormalization default
+_F32 = jax.lax.Precision.HIGHEST
 
 
-# conv compute dtype: bfloat16 on the MXU by default; bench.py's CPU-baseline
+# conv compute dtype: bfloat16 by default; bench.py's CPU-baseline
 # worker sets DNASCENT_REFCNN_F32=1 so the CPU measurement runs plain float32
 # (what the reference's TF CPU build uses) instead of emulated bf16
 _CONV_DTYPE = (jnp.float32 if __import__("os").environ.get(
@@ -145,8 +146,10 @@ def _gru_scan(x, mask, p0, p1):
     u = GRU_UNITS
 
     def cell(p, xt, h):
-        gx = xt @ p["kernel"] + p["bias"][0]
-        gh = h @ p["recurrent"] + p["bias"][1]
+        # full f32 products: the card would otherwise run these 16-wide
+        # dots in TF32 (about three decimal digits)
+        gx = jnp.dot(xt, p["kernel"], precision=_F32) + p["bias"][0]
+        gh = jnp.dot(h, p["recurrent"], precision=_F32) + p["bias"][1]
         xz, xr, xh = gx[:, :u], gx[:, u:2 * u], gx[:, 2 * u:]
         hz, hr, hh_ = gh[:, :u], gh[:, u:2 * u], gh[:, 2 * u:]
         z = jax.nn.sigmoid(xz + hz)
@@ -168,140 +171,22 @@ def _gru_scan(x, mask, p0, p1):
     return h1
 
 
-def _gru_pallas_kernel(xq_ref, w_ref, out_ref, *, R: int, T: int,
-                       quant_scale: float, quant_lo: float):
-    """VMEM-resident twin of :func:`_gru_scan` for one block of R rows.
-
-    Rows ride the 128-lane axis; the full T-step recurrence runs inside the
-    kernel, so the 3 tiny (16->48) matmuls per step chain through VMEM
-    instead of paying XLA per-op HBM roundtrips (measured ~2x on the
-    encoder).  Weights arrive as one (2+16+16+4, 48) plane: rows 0..1 the
-    two cells' x-kernels' first row (cell0 K=1 kernel; cell1 handled by
-    dot), 2..17 U0, 18..33 W1, 34..49 U1 — padded/stacked by the wrapper.
-    """
-    u = GRU_UNITS
-    k0 = w_ref[0:1, :].T                                  # (48, 1) cell0 Wx
-    b0x = w_ref[1:2, :].T
-    b0h = w_ref[2:3, :].T
-    b1x = w_ref[3:4, :].T
-    b1h = w_ref[4:5, :].T
-    U0 = w_ref[8 : 8 + u, :]                              # (16, 48)
-    W1 = w_ref[8 + u : 8 + 2 * u, :]
-    U1 = w_ref[8 + 2 * u : 8 + 3 * u, :]
-
-    h0 = jnp.zeros((u, R), jnp.float32)
-    h1 = jnp.zeros((u, R), jnp.float32)
-
-    def combine(gx, gh, h):
-        z = jax.nn.sigmoid(gx[0:u, :] + gh[0:u, :])
-        r = jax.nn.sigmoid(gx[u : 2 * u, :] + gh[u : 2 * u, :])
-        hh = jnp.tanh(gx[2 * u :, :] + r * gh[2 * u :, :])
-        return z * h + (1.0 - z) * hh
-
-    for t in range(T):
-        # u8 -> i32 -> f32 (Mosaic has no direct u8->f32 cast)
-        q = xq_ref[t : t + 1, :].astype(jnp.int32).astype(jnp.float32)
-        # mask pad steps (q==0) and exact-0.0 dequants on the DEVICE-
-        # computed value, exactly like apply()'s XLA path does (`flat !=
-        # 0.0` after the on-device dequant) — TPU f32 division runs a
-        # reciprocal approximation, so whether a code lands exactly on 0.0
-        # is a device-semantics question and must be answered by the same
-        # arithmetic the XLA path uses
-        xt = (q - 1.0) / jnp.float32(quant_scale) + jnp.float32(quant_lo)
-        live = (q != 0.0) & (xt != 0.0)                   # Keras Masking
-        gx0 = k0 * xt + b0x                               # (48, R)
-        gh0 = jax.lax.dot_general(
-            U0.T, h0, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32) + b0h
-        n0 = combine(gx0, gh0, h0)
-        gx1 = jax.lax.dot_general(
-            W1.T, n0, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32) + b1x
-        gh1 = jax.lax.dot_general(
-            U1.T, h1, (((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32) + b1h
-        n1 = combine(gx1, gh1, h1)
-        h0 = jnp.where(live, n0, h0)
-        h1 = jnp.where(live, n1, h1)
-    out_ref[...] = h1
-
-
-_GRU_BLOCK_R = 4096
-
-
-def _gru_scan_pallas(xq, p0, p1):
-    """Pallas path of the signal encoder: ``xq`` is the (N, T) u8 QUANTISED
-    sample matrix (0 = padded step); returns the final hidden state of the
-    second cell, (N, 16) f32 — same contract as feeding the dequantised
-    samples to :func:`_gru_scan` (values agree to f32 rounding; the MXU
-    accumulates the 16-term dot products in a different order)."""
-    from functools import partial
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    from .cnn import SIG_QUANT_SCALE, SIG_QUANT_LO
-
-    n, T = xq.shape
-    u = GRU_UNITS
-    R = _GRU_BLOCK_R
-    npad = (-n) % R
-    xqT = jnp.pad(xq, ((0, npad), (0, 0))).T              # (T, n+pad) u8
-
-    w = jnp.zeros((8 + 3 * u, 3 * u), jnp.float32)
-    w = w.at[0, :].set(p0["kernel"][0])
-    w = w.at[1, :].set(p0["bias"][0])
-    w = w.at[2, :].set(p0["bias"][1])
-    w = w.at[3, :].set(p1["bias"][0])
-    w = w.at[4, :].set(p1["bias"][1])
-    w = w.at[8 : 8 + u, :].set(p0["recurrent"])
-    w = w.at[8 + u : 8 + 2 * u, :].set(p1["kernel"])
-    w = w.at[8 + 2 * u : 8 + 3 * u, :].set(p1["recurrent"])
-
-    grid = (n + npad) // R
-    out = pl.pallas_call(
-        partial(_gru_pallas_kernel, R=R, T=T,
-                quant_scale=float(SIG_QUANT_SCALE),
-                quant_lo=float(SIG_QUANT_LO)),
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec((T, R), lambda i: (0, i)),
-            pl.BlockSpec((8 + 3 * u, 3 * u), lambda i: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((u, R), lambda i: (0, i)),
-        out_shape=jax.ShapeDtypeStruct((u, n + npad), jnp.float32),
-    )(xqT, w)
-    return out[:, :n].T
-
-
-def _use_gru_pallas() -> bool:
-    import os
-    if os.environ.get("DNASCENT_GRU_PALLAS", "1") == "0":
-        return False
-    return jax.default_backend() != "cpu"
-
-
 @dataclass(frozen=True)
 class ReferenceDetectCNN:
-    """Duck-types the flax DetectCNN interface used by the detect pipeline:
-    ``apply(params, core_idx, residual_idx, signal) -> (B, L, 3)`` float32
-    probabilities (hashable, so it rides jit static args)."""
+    """The detect pipeline's model interface (shared with the in-framework
+    DetectCNN): ``apply(params, core_idx, residual_idx, signal) -> (B, L, 3)``
+    float32 probabilities (hashable, so it rides jit static args)."""
 
     def apply(self, params, core_idx, residual_idx, signal):
         from .cnn import SIG_QUANT_SCALE, SIG_QUANT_LO
         B, L, T = signal.shape
-        if signal.dtype == jnp.uint8 and _use_gru_pallas():
-            # quantised u8 windows feed the VMEM-resident pallas encoder
-            # directly (dequant happens in-kernel)
-            h = _gru_scan_pallas(signal.reshape(B * L, T),
-                                 params["gru0"], params["gru1"])
-        else:
-            if signal.dtype == jnp.uint8:
-                q = signal.astype(jnp.float32)
-                signal = jnp.where(q == 0.0, 0.0,
-                                   (q - 1.0) / SIG_QUANT_SCALE
-                                   + SIG_QUANT_LO)
-            signal = signal.astype(jnp.float32)
-            flat = signal.reshape(B * L, T)
-            h = _gru_scan(flat, flat != 0.0, params["gru0"], params["gru1"])
+        if signal.dtype == jnp.uint8:
+            q = signal.astype(jnp.float32)
+            signal = jnp.where(q == 0.0, 0.0,
+                               (q - 1.0) / SIG_QUANT_SCALE + SIG_QUANT_LO)
+        signal = signal.astype(jnp.float32)
+        flat = signal.reshape(B * L, T)
+        h = _gru_scan(flat, flat != 0.0, params["gru0"], params["gru1"])
         h = h.reshape(B, L, GRU_UNITS)
         feats = jnp.concatenate(
             [h, core_idx.astype(jnp.float32)[..., None],
@@ -329,7 +214,8 @@ class ReferenceDetectCNN:
                 x = jax.nn.relu(_bn(x, params[f"layer{bn}"]))
             else:
                 x = jax.nn.relu(x)
-        logits = x @ params["head"]["kernel"] + params["head"]["bias"]
+        logits = (jnp.dot(x, params["head"]["kernel"], precision=_F32)
+                  + params["head"]["bias"])
         return jax.nn.softmax(logits, axis=-1)
 
     def receptive_field(self) -> int:

@@ -57,7 +57,7 @@ def _load():
         ]
         lib.banded_backtrace.restype = None
         lib.banded_backtrace.argtypes = [
-            u8p, u8p, i64, i64, i64, i64, i64,
+            u8p, u8p, i64, i64, i64, i64, i64, i64, i64,
             f64p, f32p, f32p, f32p, f32p, i64p, i64p, i64,
             i64p, i64, f64p, i64p, f64p,
         ]
@@ -76,12 +76,6 @@ def _load():
         lib.window_chain.argtypes = [
             i64p, i64p, i64, i64p, i64p, i64p, i64, i64, i64,
             i64p, i64p, i64p, i64p,
-        ]
-        lib.decode_moves.restype = i64
-        lib.decode_moves.argtypes = [
-            u8p, i64, i64, i64, i64, i64,
-            f64p, f32p, f32p, f32p, f32p, i64p, i64p, i64,
-            i64p, i64, f64p, i64p, f64p,
         ]
         lib.seebreaks_simulation.restype = None
         lib.seebreaks_simulation.argtypes = [
@@ -154,24 +148,34 @@ def event_detect(raw: np.ndarray, w1: int = 3, w2: int = 6,
     return mean[:m].copy(), start[:m].copy(), end[:m].copy(), int(et_n[0])
 
 
-def banded_backtrace(trace: np.ndarray, rights: np.ndarray, n_bands: int,
+def banded_backtrace(trace_packed: np.ndarray, rights_packed: np.ndarray,
+                     col: int, n_bands: int,
                      bandwidth: int, n_events: int, n_kmers: int,
                      best_event: int, event_means: np.ndarray,
                      scaled_events: np.ndarray, mu: np.ndarray,
                      inv_sigma: np.ndarray, lp_const: np.ndarray,
                      query_to_ref: np.ndarray, kmer_ranks_ref: np.ndarray):
-    """Native banded backtrace.  Returns (pairs (n,2), cleaned_signals,
-    cleaned_ranks, avg_log_emission, spanned, max_gap)."""
+    """Native banded backtrace of read ``col`` straight from the fill's
+    packed outputs (trace (S, B, W) and rights (S, B) u8).  Returns (pairs
+    (n,2), cleaned_signals, cleaned_ranks, avg_log_emission, spanned,
+    max_gap)."""
     lib = get_lib()
+    S, B, W = trace_packed.shape
+    if (W != bandwidth or rights_packed.shape != (S, B)
+            or 4 * S < n_bands - 2 or not 0 <= col < B):
+        raise ValueError(
+            f"packed trace {trace_packed.shape} / rights "
+            f"{rights_packed.shape} do not hold read {col} with {n_bands} "
+            f"bands of width {bandwidth}")
     max_pairs = n_events + n_kmers + 2
     pairs = np.empty(max_pairs * 2, dtype=np.int64)
     cs = np.empty(max_pairs, dtype=np.float64)
     cr = np.empty(max_pairs, dtype=np.int64)
     stats = np.zeros(5, dtype=np.float64)
     lib.banded_backtrace(
-        np.ascontiguousarray(trace, dtype=np.uint8),
-        np.ascontiguousarray(rights, dtype=np.uint8),
-        n_bands, bandwidth, n_events, n_kmers, best_event,
+        np.ascontiguousarray(trace_packed, dtype=np.uint8),
+        np.ascontiguousarray(rights_packed, dtype=np.uint8),
+        B, int(col), n_bands, bandwidth, n_events, n_kmers, best_event,
         np.ascontiguousarray(event_means, dtype=np.float64),
         np.ascontiguousarray(scaled_events, dtype=np.float32),
         np.ascontiguousarray(mu, dtype=np.float32),
@@ -211,39 +215,6 @@ def window_chain(undef_cum: np.ndarray, bp_pos: np.ndarray,
         int(ref_len), int(k), int(total_wl), ri, wl, j0, j1)
     n = int(n)
     return ri[:n], wl[:n], j0[:n], j1[:n]
-
-
-def decode_moves(packed: np.ndarray, col: int, best_event: int, n_kmers: int,
-                 event_means: np.ndarray, scaled_events: np.ndarray,
-                 mu: np.ndarray, inv_sigma: np.ndarray, lp_const: np.ndarray,
-                 query_to_ref: np.ndarray, kmer_ranks_ref: np.ndarray):
-    """Native decode of one read's packed 2-bit move stream (GIL-released
-    twin of ops.banded.decode_moves_host).  Returns (pairs (n,2),
-    cleaned_signals, cleaned_ranks, avg_log_emission, spanned, max_gap)."""
-    lib = get_lib()
-    rows, B = packed.shape
-    max_pairs = rows * 4 + 1
-    pairs = np.empty(max_pairs * 2, dtype=np.int64)
-    cs = np.empty(max_pairs, dtype=np.float64)
-    cr = np.empty(max_pairs, dtype=np.int64)
-    stats = np.zeros(5, dtype=np.float64)
-    m = lib.decode_moves(
-        np.ascontiguousarray(packed, dtype=np.uint8), rows, B, int(col),
-        int(best_event), int(n_kmers),
-        np.ascontiguousarray(event_means, dtype=np.float64),
-        np.ascontiguousarray(scaled_events, dtype=np.float32),
-        np.ascontiguousarray(mu, dtype=np.float32),
-        np.ascontiguousarray(inv_sigma, dtype=np.float32),
-        np.ascontiguousarray(lp_const, dtype=np.float32),
-        np.ascontiguousarray(query_to_ref, dtype=np.int64),
-        np.ascontiguousarray(kmer_ranks_ref, dtype=np.int64),
-        int(kmer_ranks_ref.shape[0]),
-        pairs, max_pairs, cs, cr, stats)
-    m = int(m)
-    n_cleaned = int(stats[4])
-    return (pairs[: 2 * m].reshape(-1, 2).copy(), cs[:n_cleaned].copy(),
-            cr[:n_cleaned].copy(), float(stats[0]), bool(stats[1]),
-            int(stats[2]))
 
 
 def baseline_detect_read(raw: np.ndarray, rq: np.ndarray, rr: np.ndarray,

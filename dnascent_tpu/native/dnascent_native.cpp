@@ -1,6 +1,6 @@
-// dnascent_native — host-side C++ support for the DNAscent-TPU framework.
+// dnascent_native — host-side C++ support for the dnascent_tpu framework.
 //
-// The TPU does the dense numeric work (banded fill, Viterbi fill, CNN); this
+// The device does the dense numeric work (banded fill, Viterbi fill, CNN); this
 // library supplies the cheap-but-sequential host pieces that map poorly onto
 // XLA: the scrappie event-detection FSM, the banded-DP backtrace pointer
 // chase, and libstdc++-exact RNG streams for seeBreaks parity.
@@ -156,7 +156,11 @@ int64_t event_detect_single(const double* raw, int64_t raw_n,
 //   pairs_out: (max_pairs*2,) int64 (event, kmer) ascending after reversal
 //   cleaned_signal_out / cleaned_rank_out: Theil-Sen inputs, backtrace order
 //   stats_out: [avg_log_emission, spanned, max_gap, n_pairs, n_cleaned]
+// trace/rights arrive as the fill packed them: (S, batch, W) and (S, batch)
+// bytes holding four bands each (band 2 + 4s + j in bits 2j / bit j of step
+// s); this read is column `col`, so no unpacked copy is ever made
 void banded_backtrace(const uint8_t* trace, const uint8_t* rights,
+                      int64_t batch, int64_t col,
                       int64_t n_bands, int64_t W,
                       int64_t n_events, int64_t n_kmers,
                       int64_t best_event,
@@ -176,7 +180,9 @@ void banded_backtrace(const uint8_t* trace, const uint8_t* rights,
     bll_e[0] = half - 1;
     bll_e[1] = half;
     for (int64_t b = 2; b < n_bands; ++b)
-        bll_e[b] = bll_e[b - 1] + (rights[b - 2] ? 0 : 1);
+        bll_e[b] = bll_e[b - 1]
+                   + (((rights[((b - 2) >> 2) * batch + col] >> ((b - 2) & 3))
+                       & 1) ? 0 : 1);
 
     int64_t curr_event = best_event;
     int64_t curr_kmer = n_kmers - 1;
@@ -200,8 +206,10 @@ void banded_backtrace(const uint8_t* trace, const uint8_t* rights,
 
         int64_t band_idx = (curr_event + 1) + (curr_kmer + 1);
         int64_t offset = bll_e[band_idx] - curr_event;
+        const int64_t r = band_idx - 2;
         uint8_t frm = (band_idx >= 2 && offset >= 0 && offset < W)
-                          ? trace[(band_idx - 2) * W + offset]
+                          ? (trace[((r >> 2) * batch + col) * W + offset]
+                             >> (2 * (r & 3))) & 3
                           : 0;
         if (band_idx < 2) {
             // bands 0/1 only contain start/trim cells; treat as U (trim)
@@ -443,99 +451,6 @@ int64_t window_chain(const int64_t* undef_cum, const int64_t* bp_pos,
         ri += wl - k + 1;
     }
     return n;
-}
-
-// ---------------------------------------------------------------------------
-// Packed-move backtrace decode (twin of ops/banded.decode_moves_host)
-// ---------------------------------------------------------------------------
-
-// Decodes one read's packed 2-bit move stream (column `col` of the
-// (rows, B)-shaped device download) into event-alignment pairs, QC
-// statistics and the Theil-Sen cleaned signals — the same outputs as
-// decode_moves_host (event_handling.cpp:318-443 semantics).  Moves arrive in
-// backward order (path end first); pairs_out is reversed to ascending order
-// before returning.  Returns the number of pairs.
-//
-// stats_out: [avg_log_emission, spanned, max_gap, n_pairs, n_cleaned]
-int64_t decode_moves(const uint8_t* packed, int64_t rows, int64_t B,
-                     int64_t col, int64_t best_event, int64_t n_kmers,
-                     const double* event_means, const float* scaled_events,
-                     const float* mu, const float* inv_sigma,
-                     const float* lp_const, const int64_t* query_to_ref,
-                     const int64_t* kmer_ranks_ref, int64_t n_ref_kmers,
-                     int64_t* pairs_out, int64_t max_pairs,
-                     double* cleaned_signal_out, int64_t* cleaned_rank_out,
-                     double* stats_out) {
-    const int MOVE_D = 0, MOVE_U = 1, MOVE_L = 2, MOVE_PAD = 3;
-    int64_t e = best_event, k = n_kmers - 1;
-    int64_t n_pairs = 0, n_cleaned = 0;
-    double sum_emission = 0.0;
-    int64_t curr_gap = 0, max_gap = 0;
-    // cleaned-segment accumulator: D/U event means since the last D
-    double seg_sum = 0.0;
-    int64_t seg_count = 0;
-    for (int64_t r = 0; r < rows; ++r) {
-        uint8_t byte = packed[r * B + col];
-        for (int j = 0; j < 4; ++j) {
-            int move = (byte >> (2 * j)) & 3;
-            // PAD is a gap, not a terminator: the Pallas chase emits a
-            // band-ordered stream with PADs at bands a read skipped
-            // (diagonal move) or had not reached; skipping preserves the
-            // walk order (bands decrease monotonically), and the scan
-            // chase's tail-only PADs behave identically under a skip
-            if (move == MOVE_PAD) continue;
-            if (e < 0 || k < 0) goto done;
-            if (n_pairs < max_pairs) {
-                pairs_out[2 * n_pairs] = e;
-                pairs_out[2 * n_pairs + 1] = k;
-            }
-            ++n_pairs;
-            float a = (scaled_events[e] - mu[k]) * inv_sigma[k];
-            sum_emission += (double)(lp_const[k] - 0.5f * a * a);
-            if (move == MOVE_D) {
-                seg_sum += event_means[e];
-                ++seg_count;
-                int64_t por = query_to_ref[k];
-                if (por >= 0 && por < n_ref_kmers) {
-                    cleaned_signal_out[n_cleaned] =
-                        seg_sum / (double)(seg_count > 0 ? seg_count : 1);
-                    cleaned_rank_out[n_cleaned] = kmer_ranks_ref[por];
-                    ++n_cleaned;
-                }
-                seg_sum = 0.0;
-                seg_count = 0;
-                --e;
-                --k;
-                curr_gap = 0;
-            } else if (move == MOVE_U) {
-                seg_sum += event_means[e];
-                ++seg_count;
-                --e;
-                curr_gap = 0;
-            } else {  // MOVE_L
-                --k;
-                ++curr_gap;
-                if (curr_gap > max_gap) max_gap = curr_gap;
-            }
-        }
-    }
-done:
-    int64_t m = std::min(n_pairs, max_pairs);
-    for (int64_t i = 0; i < m / 2; ++i) {
-        std::swap(pairs_out[2 * i], pairs_out[2 * (m - 1 - i)]);
-        std::swap(pairs_out[2 * i + 1], pairs_out[2 * (m - 1 - i) + 1]);
-    }
-    bool spanned = false;
-    if (m > 0)
-        spanned = (pairs_out[1] == 0)
-                  && (pairs_out[2 * (m - 1) + 1] == n_kmers - 1);
-    stats_out[0] =
-        n_pairs ? sum_emission / (double)n_pairs : -INFINITY;
-    stats_out[1] = spanned ? 1.0 : 0.0;
-    stats_out[2] = (double)max_gap;
-    stats_out[3] = (double)n_pairs;
-    stats_out[4] = (double)n_cleaned;
-    return m;
 }
 
 // ---------------------------------------------------------------------------

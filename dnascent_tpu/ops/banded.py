@@ -1,24 +1,28 @@
-"""Batched adaptive banded event alignment — TPU device kernel.
+"""Batched adaptive banded event alignment — the plain XLA fill.
 
 A from-scratch JAX re-design of the nanopolish-style adaptive banded DP
 (reference: src/event_handling.cpp:148-316).  Instead of one read per CPU
 thread, a whole padded batch of reads advances in lockstep through their
 anti-diagonal bands:
 
-* the band (width 100, padded to 128 lanes) lives in the vector lane
-  dimension; the read batch lives in the sublane dimension;
+* the band (width 100) is the minor array axis; the read batch is the major
+  one;
 * Suzuki's adaptive placement rule (event_handling.cpp:234-253) is evaluated
-  per read each step; predecessor bands reduce to lane shifts of the previous
-  two bands selected by the right/down decisions;
+  per read each step; predecessor bands reduce to one-cell shifts of the
+  previous two bands selected by the right/down decisions;
 * per-band emission windows are fetched with batched dynamic slices of
   precomputed per-kmer emission coefficients;
-* 2-bit traceback codes are packed four bands per byte and streamed to HBM;
-  the backtrace itself is a cheap sequential pointer chase done host-side
-  (see native/backtrace), with band placements reconstructed from a packed
-  per-band right/down bitstream.
+* 2-bit traceback codes are packed four bands per byte; the backtrace itself
+  is a sequential pointer chase done host-side (native.banded_backtrace),
+  with band placements reconstructed from a packed per-band right/down
+  bitstream.
 
 The final-row start cell search (event_handling.cpp:324-340) is folded into
 the scan carry so no extra score matrix leaves the device.
+
+:func:`banded_fill` is the reference every fill is checked against and the
+route on the CPU; ``impl="cuda"`` selects the one-block-per-read CUDA kernel
+(dnascent_tpu/cuda/banded_fill_kernel.h) with the same contract.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import numpy as np
 
 from ..config import BandedAlignmentParams
 
-NEG = jnp.float32(-jnp.inf)
+NEG = np.float32(-np.inf)
 FROM_D, FROM_U, FROM_L = 0, 1, 2
 LOG_INV_SQRT_2PI = float(np.log(0.3989422804014327))
 
@@ -63,6 +67,16 @@ def _batched_slice(arr: jnp.ndarray, start: jnp.ndarray, width: int) -> jnp.ndar
     return jax.vmap(lambda a, s: jax.lax.dynamic_slice(a, (s,), (width,)))(arr, start)
 
 
+def _transition_logs(n_events, n_kmers, epsilon_skip):
+    """Per-read (lp_stay, lp_step): p_stay depends on events per k-mer
+    (event_handling.cpp:174-182)."""
+    events_per_kmer = n_events.astype(jnp.float32) / n_kmers.astype(jnp.float32)
+    p_stay = 1.0 - (1.0 / (events_per_kmer + 1.0))
+    lp_stay = jnp.log(p_stay).astype(jnp.float32)
+    lp_step = jnp.log1p(-(jnp.float32(epsilon_skip) + p_stay)).astype(jnp.float32)
+    return lp_stay, lp_step
+
+
 def banded_fill(scaled_events: jnp.ndarray,   # (B, E) f32, (mean-shift)/scale
                 mu: jnp.ndarray,              # (B, K) f32 model mean per query kmer
                 inv_sigma: jnp.ndarray,       # (B, K) f32
@@ -84,13 +98,8 @@ def banded_fill(scaled_events: jnp.ndarray,   # (B, E) f32, (mean-shift)/scale
     half = W // 2
     n_bands = E + K + 2
     n_steps = (n_bands - 2 + 3) // 4  # bands 2..n_bands-1, 4 per step
-    fE = n_events.astype(jnp.float32)
-    fK = n_kmers.astype(jnp.float32)
-    events_per_kmer = fE / fK
-    p_stay = 1.0 - (1.0 / (events_per_kmer + 1.0))
+    lp_stay, lp_step = _transition_logs(n_events, n_kmers, epsilon_skip)
     lp_skip = jnp.float32(np.log(epsilon_skip))
-    lp_stay = jnp.log(p_stay).astype(jnp.float32)
-    lp_step = jnp.log1p(-(jnp.float32(epsilon_skip) + p_stay)).astype(jnp.float32)
     lp_trim = jnp.float32(np.log(p_trim))
 
     # pad coefficient arrays with W slack on both sides so batched dynamic
@@ -193,20 +202,55 @@ def banded_fill(scaled_events: jnp.ndarray,   # (B, E) f32, (mean-shift)/scale
     return trace_packed, rights_packed, best_event, best_score
 
 
-@functools.partial(jax.jit, static_argnames=("bandwidth", "epsilon_skip", "p_trim"))
+def banded_fill_cuda(scaled_events, mu, inv_sigma, lp_const, n_events,
+                     n_kmers, bandwidth=100, epsilon_skip=1e-30, p_trim=0.01):
+    """The CUDA kernel (one thread block per read) behind the
+    :func:`banded_fill` contract; CUDA devices only (jax.ffi, no interpret
+    mode)."""
+    from .. import cuda
+    cuda.ensure_registered()
+    B, E = scaled_events.shape
+    K = mu.shape[1]
+    n_steps = (E + K + 3) // 4
+    lp_stay, lp_step = _transition_logs(n_events, n_kmers, epsilon_skip)
+    out_types = (
+        jax.ShapeDtypeStruct((n_steps, B, bandwidth), jnp.uint8),
+        jax.ShapeDtypeStruct((n_steps, B), jnp.uint8),
+        jax.ShapeDtypeStruct((B,), jnp.int32),
+        jax.ShapeDtypeStruct((B,), jnp.float32),
+    )
+    f32 = lambda x: x.astype(jnp.float32)
+    return jax.ffi.ffi_call(cuda.BANDED_FILL_TARGET, out_types)(
+        f32(scaled_events), f32(mu), f32(inv_sigma), f32(lp_const),
+        n_events.astype(jnp.int32), n_kmers.astype(jnp.int32),
+        lp_stay, lp_step,
+        lp_skip=np.float32(np.log(epsilon_skip)),
+        lp_trim=np.float32(np.log(p_trim)))
+
+
+_FILL_IMPLS = {"xla": banded_fill, "cuda": banded_fill_cuda}
+
+
+@functools.partial(jax.jit, static_argnames=("bandwidth", "epsilon_skip",
+                                             "p_trim", "impl"))
 def banded_fill_jit(scaled_events, mu, inv_sigma, lp_const, n_events, n_kmers,
-                    bandwidth=100, epsilon_skip=1e-30, p_trim=0.01):
-    return banded_fill(scaled_events, mu, inv_sigma, lp_const, n_events, n_kmers,
-                       bandwidth, epsilon_skip, p_trim)
+                    bandwidth=100, epsilon_skip=1e-30, p_trim=0.01,
+                    impl="xla"):
+    """``impl`` names the fill ("xla" scan or "cuda" kernel; see
+    dnascent_tpu.platform)."""
+    return _FILL_IMPLS[impl](scaled_events, mu, inv_sigma, lp_const,
+                             n_events, n_kmers, bandwidth, epsilon_skip,
+                             p_trim)
 
 
 @functools.lru_cache(maxsize=None)
-def _banded_fill_sharded_fn(mesh, bandwidth, epsilon_skip, p_trim):
+def _banded_fill_sharded_fn(mesh, bandwidth, epsilon_skip, p_trim, impl):
     from jax.sharding import PartitionSpec as P
 
     def inner(scaled_events, mu, inv_sigma, lp_const, n_events, n_kmers):
-        return banded_fill(scaled_events, mu, inv_sigma, lp_const, n_events,
-                           n_kmers, bandwidth, epsilon_skip, p_trim)
+        return _FILL_IMPLS[impl](scaled_events, mu, inv_sigma, lp_const,
+                                 n_events, n_kmers, bandwidth, epsilon_skip,
+                                 p_trim)
 
     row2 = P("data", None)
     sm = jax.shard_map(
@@ -219,180 +263,15 @@ def _banded_fill_sharded_fn(mesh, bandwidth, epsilon_skip, p_trim):
 
 def banded_fill_sharded(mesh, scaled_events, mu, inv_sigma, lp_const,
                         n_events, n_kmers, bandwidth=100, epsilon_skip=1e-30,
-                        p_trim=0.01):
-    """Explicitly batch-sharded XLA fill: each mesh device runs the scan on
-    its row shard (shard_map, no cross-device collectives).  Per-row math is
-    identical to :func:`banded_fill_jit`, so N-device output is bitwise equal
-    to 1-device."""
-    return _banded_fill_sharded_fn(mesh, bandwidth, epsilon_skip, p_trim)(
+                        p_trim=0.01, impl="xla"):
+    """Explicitly batch-sharded fill: each mesh device runs the fill on its
+    row shard (shard_map, no cross-device collectives; an FFI call has no
+    partitioning rule of its own).  Per-row math is identical to
+    :func:`banded_fill_jit`, so N-device output is bitwise equal to
+    1-device."""
+    return _banded_fill_sharded_fn(mesh, bandwidth, epsilon_skip, p_trim,
+                                   impl)(
         scaled_events, mu, inv_sigma, lp_const, n_events, n_kmers)
-
-
-MOVE_D, MOVE_U, MOVE_L, MOVE_PAD = 0, 1, 2, 3
-
-
-def _backtrace_moves(trace_packed: jnp.ndarray,   # (n_steps, B, W) u8
-                     rights_packed: jnp.ndarray,  # (n_steps, B) u8
-                     best_event: jnp.ndarray,     # (B,) i32
-                     n_kmers: jnp.ndarray,        # (B,) i32
-                     bandwidth: int = 100):
-    """On-device backtrace pointer chase, vectorised across the batch.
-
-    Emits the path as packed 2-bit moves in *backward* order (step 0 is the
-    path end at (best_event, n_kmers-1)), 4 moves per byte — ~25x smaller
-    than shipping the trace to the host.  Decoding, QC statistics and the
-    cleaned-signal aggregation are cheap vectorised host work
-    (decode_moves_host)."""
-    n_steps, B, W = trace_packed.shape
-    half = bandwidth // 2
-    # band lower-left event index per band: bll_e[band] for bands 0..
-    rights_bits = jnp.stack(
-        [(rights_packed >> j) & 1 for j in range(4)], axis=1
-    ).reshape(n_steps * 4, B)                       # (n_bands-2, B) in order
-    downs = 1 - rights_bits.astype(jnp.int32)
-    bll_e = jnp.concatenate([
-        jnp.full((2, B), 0, jnp.int32),             # bands 0,1 handled below
-        half + jnp.cumsum(downs, axis=0),
-    ], axis=0)
-    bll_e = bll_e.at[0].set(half - 1).at[1].set(half)
-
-    L = n_steps * 4 + 4
-    bidx = jnp.arange(B, dtype=jnp.int32)
-
-    def body(state, _):
-        e, k, done = state
-        band = e + k + 2
-        srow = jnp.clip((band - 2) // 4, 0, n_steps - 1)
-        bit = ((band - 2) % 4) * 2
-        off = bll_e[jnp.clip(band, 0, bll_e.shape[0] - 1), bidx] - e
-        off_c = jnp.clip(off, 0, W - 1)
-        byte = trace_packed[srow, bidx, off_c].astype(jnp.int32)
-        code = (byte >> bit) & 3
-        # bands 0/1 only hold start/trim cells: treat as U (trim chain)
-        code = jnp.where(band < 2, MOVE_U, code)
-        active = ~done
-        is_d = active & (code == MOVE_D)
-        is_u = active & (code == MOVE_U)
-        is_l = active & (code == MOVE_L)
-        e = e - jnp.where(is_d | is_u, 1, 0)
-        k = k - jnp.where(is_d | is_l, 1, 0)
-        out_code = jnp.where(active, code, MOVE_PAD).astype(jnp.uint8)
-        done = done | (e < 0) | (k < 0)
-        return (e, k, done), out_code
-
-    e0 = best_event.astype(jnp.int32)
-    k0 = n_kmers.astype(jnp.int32) - 1
-    done0 = (e0 < 0) | (k0 < 0)
-    # scan (emitting rows) instead of fori_loop + dynamic_update_slice, and
-    # unrolled: the chase is ~n_bands (tens of thousands) tiny sequential
-    # steps, so per-step dispatch overhead dominates without unrolling
-    import os
-    unroll = int(os.environ.get("DNASCENT_BT_UNROLL", "8"))
-    _, buf = jax.lax.scan(body, (e0, k0, done0), None, length=L,
-                          unroll=unroll)
-    # pack 4 moves per byte for the transfer
-    Lp = (L + 3) // 4 * 4
-    buf = jnp.pad(buf, ((0, Lp - L), (0, 0)), constant_values=MOVE_PAD)
-    b4 = buf.reshape(Lp // 4, 4, B).astype(jnp.int32)
-    packed = (b4[:, 0] | (b4[:, 1] << 2) | (b4[:, 2] << 4)
-              | (b4[:, 3] << 6)).astype(jnp.uint8)
-    return packed                                     # (Lp/4, B) u8
-
-
-@functools.partial(jax.jit, static_argnames=("bandwidth",))
-def backtrace_moves_device(trace_packed, rights_packed, best_event, n_kmers,
-                           bandwidth: int = 100):
-    return _backtrace_moves(trace_packed, rights_packed, best_event, n_kmers,
-                            bandwidth)
-
-
-@functools.lru_cache(maxsize=None)
-def _backtrace_moves_sharded_fn(mesh, bandwidth):
-    from jax.sharding import PartitionSpec as P
-
-    def inner(tp, rp, best_event, n_kmers):
-        return _backtrace_moves(tp, rp, best_event, n_kmers, bandwidth)
-
-    sm = jax.shard_map(
-        inner, mesh=mesh, check_vma=False,
-        in_specs=(P(None, "data", None), P(None, "data"), P("data"),
-                  P("data")),
-        out_specs=P(None, "data"))
-    return jax.jit(sm)
-
-
-def backtrace_moves_sharded(mesh, trace_packed, rights_packed, best_event,
-                            n_kmers, bandwidth: int = 100):
-    """Batch-sharded backtrace chase: each device chases its own rows
-    (shard_map; the chase's per-row gathers would otherwise tempt GSPMD into
-    all-gathering the trace planes)."""
-    return _backtrace_moves_sharded_fn(mesh, bandwidth)(
-        trace_packed, rights_packed, best_event, n_kmers)
-
-
-def decode_moves_host(packed: np.ndarray, col: int, best_event: int,
-                      n_kmers: int, event_means: np.ndarray,
-                      scaled_events: np.ndarray, mu: np.ndarray,
-                      inv_sigma: np.ndarray, lp_const: np.ndarray,
-                      query_to_ref: np.ndarray, kmer_ranks_ref: np.ndarray):
-    """Vectorised host decode of one read's packed move stream: event
-    alignment pairs, QC statistics, and Theil-Sen cleaned signals — the same
-    outputs as native.banded_backtrace (event_handling.cpp:318-443)."""
-    bytes_ = packed[:, col].astype(np.int64)
-    moves = np.stack([(bytes_ >> (2 * j)) & 3 for j in range(4)],
-                     axis=1).reshape(-1)
-    # PAD entries are skipped, not treated as terminators: the scan chase
-    # emits them only as a tail, but the Pallas chase emits a band-ordered
-    # stream with PAD gaps at skipped bands (filtering preserves the walk
-    # order in both formats — bands decrease monotonically along the walk)
-    moves = moves[moves != MOVE_PAD]
-    n = moves.shape[0]
-    if n == 0:
-        return (np.empty((0, 2), np.int64), np.empty(0), np.empty(0, np.int64),
-                float("-inf"), False, 0)
-    is_d = moves == MOVE_D
-    is_u = moves == MOVE_U
-    is_l = moves == MOVE_L
-    # backward-order positions: e decreases on D/U, k on D/L
-    e = best_event - np.concatenate([[0], np.cumsum(is_d | is_u)[:-1]])
-    k = (n_kmers - 1) - np.concatenate([[0], np.cumsum(is_d | is_l)[:-1]])
-    pairs = np.stack([e[::-1], k[::-1]], axis=1).astype(np.int64)
-
-    a = (scaled_events[e] - mu[k]) * inv_sigma[k]
-    emission = lp_const[k] - np.float32(0.5) * a * a
-    avg_log_emission = float(np.mean(emission.astype(np.float64)))
-    spanned = bool(pairs[0, 1] == 0 and pairs[-1, 1] == n_kmers - 1)
-    # max gap: longest run of consecutive L moves
-    if is_l.any():
-        padded = np.concatenate([[0], is_l.view(np.int8), [0]])
-        d = np.diff(padded)
-        starts = np.nonzero(d == 1)[0]
-        ends = np.nonzero(d == -1)[0]
-        max_gap = int((ends - starts).max())
-    else:
-        max_gap = 0
-
-    # cleaned signals: D closes a segment of the current event mean plus the
-    # U-accumulated later events (backward order, event_handling.cpp:352-394)
-    d_steps = np.nonzero(is_d)[0]
-    cleaned_signals = np.empty(0)
-    cleaned_ranks = np.empty(0, np.int64)
-    if d_steps.shape[0]:
-        # segment for D at step t: steps (prev_d, t] that are D/U
-        seg_start = np.concatenate([[0], d_steps[:-1] + 1])
-        emitting = is_d | is_u
-        upto = d_steps[-1] + 1
-        vals = (event_means[e] * emitting)[:upto]
-        sums = np.add.reduceat(vals, seg_start)
-        counts = np.add.reduceat(emitting[:upto].astype(np.int64), seg_start)
-        means = sums / np.maximum(counts, 1)
-        k_at_d = k[d_steps]
-        por = query_to_ref[k_at_d]
-        keep = (por >= 0) & (por < kmer_ranks_ref.shape[0])
-        cleaned_signals = means[keep]
-        cleaned_ranks = kmer_ranks_ref[por[keep]]
-    return (pairs, cleaned_signals, cleaned_ranks, avg_log_emission, spanned,
-            max_gap)
 
 
 def prepare_emission_coefficients(kmer_ranks: np.ndarray, model: np.ndarray):

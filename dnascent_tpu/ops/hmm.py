@@ -17,7 +17,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-NEG = jnp.float32(-jnp.inf)
+NEG = np.float32(-np.inf)
 
 
 def forward_batch(obs: jnp.ndarray,        # (W, T) f32 scaled observations

@@ -3,7 +3,7 @@
 These mirror the reference C/C++ semantics exactly (including its quirks,
 which are flagged inline) and serve three purposes:
 
-1. the correctness oracle the JAX/Pallas kernels are tested against;
+1. the correctness oracle the JAX and CUDA kernels are tested against;
 2. a host-side fallback for tiny inputs;
 3. executable documentation of the algorithms with file:line citations.
 

@@ -6,7 +6,7 @@ a Theil-Sen median-of-slopes refinement over up to 1000 cleaned points from
 the banded backtrace (event_handling.cpp:24-110) — an O(500k) slope sort per
 read on the CPU.
 
-On TPU the sort is replaced by an exact k-th-smallest selection via binary
+On the device the sort is replaced by an exact k-th-smallest selection via binary
 search over the *bit patterns* of float32 (a monotone reinterpretation), which
 turns the median into ~32 batched masked-count reductions — no sort, no
 gather, fully vectorised across the read batch.

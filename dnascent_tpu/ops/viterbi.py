@@ -1,4 +1,4 @@
-"""Batched windowed Viterbi eventalign — TPU device kernel.
+"""Batched windowed Viterbi eventalign — device kernel (plain XLA scans).
 
 Re-design of the reference's per-50-bp-window 3-state (M/I/D per k-mer)
 max-product Viterbi (reference: src/alignment.cpp:193-516).  The reference
@@ -28,13 +28,13 @@ import jax.numpy as jnp
 import numpy as np
 
 # scan unroll factors: both the fill scan (T steps of (N, W) math) and the
-# backtrace scan (T+N steps of (W,) gathers) run thousands of tiny sequential
-# steps, so per-step loop overhead is a real cost on TPU; unrolling trades
-# compile time for it.  Env-tunable for experiments.
+# backtrace scan (T+N steps of (W,) gathers) run hundreds of small
+# sequential steps, so per-step loop overhead is a real cost; unrolling
+# trades compile time for it.  Env-tunable for experiments.
 _FILL_UNROLL = int(os.environ.get("DNASCENT_VIT_FILL_UNROLL", "1"))
 _BT_UNROLL = int(os.environ.get("DNASCENT_VIT_BT_UNROLL", "1"))
 
-NEG = jnp.float32(-jnp.inf)
+NEG = np.float32(-np.inf)
 KIND_D, KIND_M, KIND_I, KIND_PAD = 0, 1, 2, 3
 
 # backtrace pointer codes, packed into one uint8 per (t, state):
@@ -52,7 +52,6 @@ def viterbi_fill_backtrace(obs: jnp.ndarray,        # (W, T) f32 scaled observat
                            n_states: jnp.ndarray,   # (W,) i32
                            events_per_base: jnp.ndarray,  # (W,) f32 (per read)
                            hmm_probs: tuple[float, float, float, float, float, float],
-                           use_pallas: bool = False,
                            bt_len: int | None = None,
                            ):
     """Returns (path_code (W, L) uint8, path_len (W,), score (W,)) with
@@ -60,15 +59,11 @@ def viterbi_fill_backtrace(obs: jnp.ndarray,        # (W, T) f32 scaled observat
     is the backward position decrement of the step — one byte per step
     instead of (kind, pos) pairs; decode with ``decode_path``.  Paths are in
     forward order occupying the LAST path_len entries of each row (leading
-    entries are KIND_PAD).
-
-    ``use_pallas`` routes the fill through the VMEM-resident Pallas kernel
-    (ops/viterbi_pallas.py) — same codes, ~50x less HBM traffic per column;
-    the termination + backtrace scan below is shared by both fills."""
+    entries are KIND_PAD)."""
     W, T = obs.shape
     N = mu.shape[1]
-    # state-major (N, W) layout: W (thousands of windows) rides the 128-lane
-    # axis fully tiled, instead of the 72-state axis padding lanes to 128
+    # state-major (N, W) layout: W (thousands of windows) is the minor,
+    # contiguous axis of every (N, W) plane
     obs_T = obs.T.astype(jnp.float32)                    # (T, W)
     muT = mu.T
     invT = inv_sigma.T
@@ -86,18 +81,6 @@ def viterbi_fill_backtrace(obs: jnp.ndarray,        # (W, T) f32 scaled observat
                    ).astype(jnp.float32)
     eM2MorD = jnp.logaddexp(eM2M, eM2D)
     eOrIM2M = jnp.logaddexp(eM2M, iM2M)
-
-    if use_pallas:
-        from .viterbi_pallas import viterbi_fill_codes_pallas
-        hmm_logs = (float(np.log(eD2D_f)), float(np.log(eD2M_f)),
-                    float(np.log(eI2M_f)), float(np.log(eM2D_f)),
-                    float(np.log(iM2I_f)), float(np.log(iI2I_f)))
-        codes, I_fin, M_fin, D_fin = viterbi_fill_codes_pallas(
-            obs_T, muT, invT, lpcT, n_obs.astype(jnp.int32),
-            n_states.astype(jnp.int32), iM2M, eM2M, eOrIM2M, hmm_logs)
-        return _terminate_and_backtrace(codes, I_fin, M_fin, D_fin, n_obs,
-                                        n_states, eM2MorD, eI2M, W, T, N,
-                                        bt_len, use_pallas_bt=True)
 
     sidx = jnp.arange(N, dtype=jnp.int32)[:, None]       # (N, 1)
     in_range = sidx < n_states[None, :]                  # (N, W)
@@ -171,8 +154,7 @@ def viterbi_fill_backtrace(obs: jnp.ndarray,        # (W, T) f32 scaled observat
 
 
 def _terminate_and_backtrace(codes, I_fin, M_fin, D_fin, n_obs, n_states,
-                             eM2MorD, eI2M, W, T, N, bt_len=None,
-                             use_pallas_bt=False):
+                             eM2MorD, eI2M, W, T, N, bt_len=None):
     # --- termination (alignment.cpp:445-476) ---
     last = jnp.clip(n_states - 1, 0, N - 1)[None, :]
     Dl = jnp.take_along_axis(D_fin, last, axis=0)[0]
@@ -181,18 +163,6 @@ def _terminate_and_backtrace(codes, I_fin, M_fin, D_fin, n_obs, n_states,
     cand = jnp.stack([Dl, Ml + eM2MorD, Il + eI2M])
     score = cand.max(axis=0)
     kind0 = jnp.argmax(cand, axis=0).astype(jnp.int32)   # 0=D,1=M,2=I
-
-    if use_pallas_bt:
-        # countdown Pallas walk: emits a PAD-gapped forward-order stream
-        # (consumers filter PADs — same filtering also handles the scan's
-        # tail pads, so both formats decode identically)
-        from .viterbi_pallas import viterbi_backtrace_pallas
-        s_rows = min(bt_len, T + N) if bt_len else (T + N)
-        pc, pl_ = viterbi_backtrace_pallas(codes, kind0,
-                                           n_obs.astype(jnp.int32),
-                                           n_states.astype(jnp.int32),
-                                           s_rows)
-        return pc, pl_, score
 
     # --- vectorised backtrace across windows ---
     # the walk is <= n_obs + n_states + 2 steps; callers that know the
@@ -362,7 +332,7 @@ def viterbi_from_flat_ranks_sharded(mesh, obs, n_obs, starts, flat_ranks,
                                     model_table, n_states, events_per_base,
                                     hmm_probs, n_state_pad):
     """Window-sharded variant (shard_map over the mesh's data axis): each
-    device runs the fill — Pallas on accelerators — on its window shard."""
+    device runs the fill on its window shard."""
     return _viterbi_from_flat_ranks_sharded_fn(mesh, hmm_probs, n_state_pad)(
         obs, n_obs, starts, flat_ranks, model_table, n_states,
         events_per_base)
@@ -491,21 +461,11 @@ def viterbi_from_flat_sharded(mesh, obs_flat, obs_starts, n_obs, rank_starts,
                               bt_len=None):
     """Window-sharded flat variant: the flat observation/rank streams are
     replicated, the per-window offset vectors are sharded, and each device
-    runs its shard's fill — the Pallas kernel on accelerators — under
-    shard_map (a plain jit under a mesh would replicate the pallas_call)."""
+    runs its shard's fill under shard_map."""
     return _viterbi_from_flat_sharded_fn(mesh, hmm_probs, n_state_pad,
                                          t_pad, bt_len)(
         obs_flat, obs_starts, n_obs, rank_starts, flat_ranks, model_table,
         n_states, events_per_base)
-
-
-def _pallas_fill_default() -> bool:
-    """Route the fill through the Pallas kernel on accelerators (trace-time
-    decision; CPU keeps the XLA scan, which interpret-free Pallas can't
-    serve).  DNASCENT_VIT_PALLAS=0 forces the XLA scan everywhere."""
-    if os.environ.get("DNASCENT_VIT_PALLAS", "1") == "0":
-        return False
-    return jax.default_backend() != "cpu"
 
 
 def viterbi_from_ranks_core(obs, n_obs, ranks, model_table, n_states,
@@ -519,7 +479,6 @@ def viterbi_from_ranks_core(obs, n_obs, ranks, model_table, n_states,
     lp_const = jnp.where(ranks < 0, NEG, lp_const)
     return viterbi_fill_backtrace(obs, n_obs, mu, inv_sigma, lp_const,
                                   n_states, events_per_base, hmm_probs,
-                                  use_pallas=_pallas_fill_default(),
                                   bt_len=bt_len)
 
 

@@ -2,8 +2,8 @@
 
 The reference parallelises detect with an OpenMP loop over reads
 (reference: src/detect.cpp:852) plus one pinned GPU (src/tensor.cpp:78-82).
-The TPU equivalent is SPMD: every batched kernel call in the pipeline
-(banded fill, backtrace chase, Theil-Sen, windowed Viterbi, CNN forward)
+The equivalent here is SPMD: every batched kernel call in the pipeline
+(banded fill, Theil-Sen, windowed Viterbi, CNN forward)
 is batch-parallel in its leading read/window axis, so sharding that axis
 over a ``('data',)`` mesh and letting GSPMD partition the program yields
 per-row results bitwise identical to the single-device run — N-chip output

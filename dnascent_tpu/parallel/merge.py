@@ -1,7 +1,7 @@
 """Deterministic merge of per-host pipeline outputs.
 
 The reference is single-process, so output order is BAM record order
-(SURVEY §5).  In the multi-host TPU deployment each host writes its shard's
+(SURVEY §5).  In a multi-host deployment each host writes its shard's
 results to ``<out>.host<k>``; this module merges them into one file in a
 canonical order — (contig, refStart, refEnd, readID) — so results are
 byte-stable regardless of host count or scheduling.

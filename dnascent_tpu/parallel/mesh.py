@@ -1,7 +1,7 @@
 """Device mesh + sharding strategy.
 
 The reference's only parallelism is OpenMP threads over reads plus a single
-pinned GPU (reference: src/detect.cpp:852, src/tensor.cpp:78-82).  The TPU
+pinned GPU (reference: src/detect.cpp:852, src/tensor.cpp:78-82).  This
 framework replaces that with SPMD over a JAX mesh:
 
 * axis ``data``  — reads (and CNN training batches) are sharded;

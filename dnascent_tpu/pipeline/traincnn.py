@@ -8,8 +8,8 @@ This module provides:
 * ``generate_training_tables`` — the reference-parity path: run the detect
   pipeline and emit eventalign tables annotated with analogue calls
   (trainCNN.cpp:327-335 runs eventalign twice for this);
-* ``train_detect_cnn`` — an actual TPU training loop for DetectCNN from
-  labelled per-position examples (cross-entropy, AdamW, bf16 MXU compute,
+* ``train_detect_cnn`` — an actual training loop for DetectCNN from
+  labelled per-position examples (cross-entropy, AdamW, bf16 compute,
   data-parallel over a device mesh).
 """
 
@@ -176,7 +176,7 @@ def train_detect_cnn(batches: Iterator[TrainBatch], model=None, params=None,
                      checkpoint_path: str = None,
                      checkpoint_every: int = 500, optimizer=None):
     """Fit a detect model (any object with the ``apply(params, core,
-    residual, signal) -> (B, L, 3)`` contract — the TPU-native DetectCNN or
+    residual, signal) -> (B, L, 3)`` contract — the in-framework DetectCNN or
     the reference topology); returns (params, losses).
 
     ``checkpoint_path`` enables periodic npz checkpoints (resume by loading

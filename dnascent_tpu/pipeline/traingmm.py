@@ -5,7 +5,7 @@ event pools per k-mer (cap 10000), 1-D DBSCAN outlier removal
 (eps 0.5 pA, minPoints 2.5% of pool), then a 2-component EM where component 1
 is pinned to the ONT model (gaussianMixtureEM_PRIOR, trainGMM.cpp:185-265).
 
-TPU re-design: the 4^9 independent EM problems are embarrassingly parallel —
+Device re-design: the 4^9 independent EM problems are embarrassingly parallel —
 they run as one batched, masked, log-space EM on device (chunked over k-mers),
 with per-kmer convergence freezing.  The 1-D DBSCAN reduces to an
 order-independent rule (non-noise = within eps of a core point), vectorised

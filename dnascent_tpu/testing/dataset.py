@@ -37,6 +37,8 @@ def build_dataset(outdir: str, models: PoreModelSet,
     """Simulate reads from a random reference contig and write all files.
 
     Reads map perfectly (cigar = all-M), a fraction on the reverse strand.
+    ``signal_format``: "fast5", "pod5" (VBZ rows) or "pod5_raw"
+    (uncompressed pod5 rows).
     ``analogue_painter(seed, n_kmers) -> bool mask`` optionally paints
     analogue tracks.
     """
@@ -79,7 +81,9 @@ def build_dataset(outdir: str, models: PoreModelSet,
     if signal_format == "fast5":
         fast5_io.write_fast5(os.path.join(signal_dir, "batch0.fast5"), reads)
     else:
-        pod5_io.write_pod5(os.path.join(signal_dir, "batch0.pod5"), reads)
+        # "pod5_raw": uncompressed signal rows (no zstd needed to read them)
+        pod5_io.write_pod5(os.path.join(signal_dir, "batch0.pod5"), reads,
+                           compress=signal_format != "pod5_raw")
 
     bam_path = os.path.join(outdir, "alignment.bam")
     header = "@HD\tVN:1.6\tSO:unknown\n@SQ\tSN:chrS\tLN:%d\n" % contig_length

@@ -3,8 +3,6 @@
 Honours DNASCENT_VIT_FILL_UNROLL / DNASCENT_VIT_BT_UNROLL."""
 import os, sys, time
 import numpy as np, jax, jax.numpy as jnp
-from dnascent_tpu.utils.jaxcache import enable_compilation_cache
-enable_compilation_cache()
 from dnascent_tpu.config import DNA_R10
 from dnascent_tpu.ops import viterbi as vit
 

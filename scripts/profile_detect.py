@@ -7,8 +7,6 @@ import time
 
 import numpy as np
 
-from dnascent_tpu.utils.jaxcache import enable_compilation_cache
-enable_compilation_cache()
 
 from dnascent_tpu.config import DNA_R10
 from dnascent_tpu.io.poremodel import synthetic_model_set

@@ -103,11 +103,10 @@ def test_native_backtrace_matches_oracle(models, batch, device_out):
         res = _oracle(models, read)
         ne, nk = int(n_ev[b]), int(n_km[b])
         n_bands = ne + nk + 2
-        tr, rg = banded.unpack_trace(tp[:, b : b + 1], rp[:, b : b + 1], n_bands)
         q2r = np.arange(len(sim.sequence), dtype=np.int64)
         pairs, cs, cr, avg_em, spanned, max_gap = native.banded_backtrace(
-            tr[:, 0, :], rg[:, 0].astype(np.uint8), n_bands,
-            DNA_R10.banded.bandwidth, ne, nk, int(best_e[b]),
+            tp, rp, b, n_bands, DNA_R10.banded.bandwidth, ne, nk,
+            int(best_e[b]),
             me.mean, scaled[b, :ne], mu[b, :nk], inv_s[b, :nk], lpc[b, :nk],
             q2r, ranks.astype(np.int64))
         # oracle comparison (oracle clears pairs when qc fails; compare raw)
@@ -133,35 +132,58 @@ def test_native_event_detect_matches_oracle(models):
     np.testing.assert_array_equal(end, me.raw_end)
 
 
-def test_device_backtrace_matches_native(models, batch, device_out):
-    """On-device move-stream backtrace + host decode vs native backtrace."""
-    if not native.available():
-        pytest.skip("native library unavailable")
-    import jax.numpy as jnp
+@pytest.mark.parametrize("kind", ["static_sigma", "fitted_sigma"])
+def test_xla_fill_matches_oracle_both_model_kinds(models, kind):
+    """The XLA fill + native backtrace reproduce the numpy oracle's
+    alignment for the shipping static-sigma table and for a per-k-mer
+    sigma table like the ones trainGMM fits."""
+    import dataclasses
+    if kind == "fitted_sigma":
+        pm = models.pore_model.copy()
+        pm[:, 1] = np.random.default_rng(9).uniform(0.08, 0.3, pm.shape[0])
+        models = dataclasses.replace(models, pore_model=pm)
+    read = _prep_read(models, 31, 1600)
+    sim, me, ranks, shift, scale = read
+    ne, nk = me.mean.shape[0], ranks.shape[0]
+    scaled = ((me.mean - shift) / scale).astype(np.float32)[None, :]
+    mu, inv_s, lpc = banded.prepare_emission_coefficients(
+        ranks[None, :], models.pore_model)
+    n_ev, n_km = np.array([ne], np.int32), np.array([nk], np.int32)
+    tp, rp, best_e, _ = (np.asarray(x) for x in banded.banded_fill_jit(
+        scaled, mu, inv_s, lpc, n_ev, n_km))
+    res = _oracle(models, read)
+    assert res.qc_pass     # the oracle keeps its alignment
+    n_bands = ne + nk + 2
+    tr, rg = banded.unpack_trace(tp, rp, n_bands)
+    assert (rg[:, 0] == (np.diff(res.band_lower_left[:, 1]) == 1)[1:]).all()
+    assert (tr[:, 0, :] != res.trace[2:n_bands]).mean() < 1e-3
+    pairs = native.banded_backtrace(
+        tp, rp, 0, n_bands, DNA_R10.banded.bandwidth, ne, nk,
+        int(best_e[0]), me.mean,
+        scaled[0], mu[0], inv_s[0], lpc[0],
+        np.arange(nk, dtype=np.int64), ranks.astype(np.int64))[0]
+    np.testing.assert_array_equal(pairs, res.event_alignment)
+
+
+def test_sharded_fill_equals_single_device(batch, device_out):
+    """The shard_map fill over the 8-device mesh (rows padded to 8) is
+    bitwise the single-device fill."""
+    from dnascent_tpu.parallel import compute
     reads, scaled, mu, inv_s, lpc, n_ev, n_km = batch
-    tp, rp, best_e, best_s = device_out
-    packed = np.asarray(banded.backtrace_moves_device(
-        jnp.asarray(tp), jnp.asarray(rp), jnp.asarray(best_e),
-        jnp.asarray(n_km), bandwidth=DNA_R10.banded.bandwidth))
-    for b, read in enumerate(reads):
-        sim, me, ranks, shift, scale = read
-        ne, nk = int(n_ev[b]), int(n_km[b])
-        n_bands = ne + nk + 2
-        tr, rg = banded.unpack_trace(tp[:, b : b + 1], rp[:, b : b + 1],
-                                     n_bands)
-        q2r = np.arange(len(sim.sequence), dtype=np.int64)
-        want = native.banded_backtrace(
-            tr[:, 0, :], rg[:, 0].astype(np.uint8), n_bands,
-            DNA_R10.banded.bandwidth, ne, nk, int(best_e[b]),
-            me.mean, scaled[b, :ne], mu[b, :nk], inv_s[b, :nk], lpc[b, :nk],
-            q2r, ranks.astype(np.int64))
-        got = banded.decode_moves_host(
-            packed, b, int(best_e[b]), nk, me.mean, scaled[b, :ne],
-            mu[b, :nk], inv_s[b, :nk], lpc[b, :nk], q2r,
-            ranks.astype(np.int64))
-        np.testing.assert_array_equal(got[0], want[0])          # pairs
-        np.testing.assert_allclose(got[1], want[1], rtol=1e-9)  # cleaned sig
-        np.testing.assert_array_equal(got[2], want[2])          # cleaned rank
-        assert abs(got[3] - want[3]) < 5e-3                     # avg emission
-        assert got[4] == want[4]                                # spanned
-        assert got[5] == want[5]                                # max gap
+    pad = lambda x, v=0: np.concatenate(
+        [x, np.full((8 - x.shape[0],) + x.shape[1:], v, x.dtype)])
+    args = (pad(scaled), pad(mu), pad(inv_s, 1), pad(lpc, -np.inf),
+            pad(n_ev), pad(n_km))
+    mesh = compute.make_data_mesh(8)
+    compute.set_compute_mesh(mesh)
+    try:
+        out = banded.banded_fill_sharded(
+            mesh, *(compute.put_rows(a) for a in args))
+    finally:
+        compute.set_compute_mesh(None)
+    tp, rp, best_e, best_s = (np.asarray(x) for x in out)
+    B = scaled.shape[0]
+    np.testing.assert_array_equal(tp[:, :B], device_out[0])
+    np.testing.assert_array_equal(rp[:, :B], device_out[1])
+    np.testing.assert_array_equal(best_e[:B], device_out[2])
+    np.testing.assert_array_equal(best_s[:B], device_out[3])

@@ -142,7 +142,7 @@ def test_cli_traincnn_fit_requires_label(dataset, tmp_path):
 
 def test_load_cnn_selects_reference_topology_npz(tmp_path):
     """--cnn-weights npz written from reference-topology params loads the
-    reference model, not the TPU-native DetectCNN."""
+    reference model, not the in-framework DetectCNN."""
     from types import SimpleNamespace
     from dnascent_tpu.models import cnn as cnn_mod
     from dnascent_tpu.models import reference_cnn

@@ -163,6 +163,21 @@ def test_pod5_roundtrip(tmp_path):
     np.testing.assert_allclose(back2, sig2, atol=0.1)
 
 
+def test_pod5_uncompressed_roundtrip(tmp_path, monkeypatch):
+    """Uncompressed pod5 signal rows write and read back without zstd."""
+    monkeypatch.setattr(pod5_io, "HAVE_ZSTD", False)
+    path = os.path.join(tmp_path, "raw.pod5")
+    rng = np.random.default_rng(3)
+    sig = rng.uniform(60, 120, 120000)   # two signal chunks
+    rid = "11111111-2222-4333-8444-666666666666"
+    pod5_io.write_pod5(path, [(rid, sig)], compress=False)
+    assert [i[0] for i in pod5_io.pod5_extract_read_ids(path)] == [rid]
+    np.testing.assert_allclose(pod5_io.pod5_get_signal(path, rid), sig,
+                               atol=0.1)
+    with pytest.raises(RuntimeError):
+        pod5_io.write_pod5(path, [(rid, sig)])       # VBZ needs zstd
+
+
 def test_vbz_codec():
     rng = np.random.default_rng(2)
     x = rng.integers(-3000, 3000, 10000).astype(np.int16)

@@ -39,52 +39,3 @@ def test_native_matches_numpy_postprocess(models, monkeypatch):
         np.testing.assert_array_equal(a.signal_u8_flat, b.signal_u8_flat)
         np.testing.assert_array_equal(a.signal_counts, b.signal_counts)
         np.testing.assert_allclose(a.signal, b.signal, rtol=0, atol=0)
-
-
-@pytest.mark.skipif(not native.available(), reason="native lib unavailable")
-def test_native_decode_moves_matches_numpy(models):
-    """native.decode_moves vs ops.banded.decode_moves_host on a synthetic
-    packed move stream (same layout backtrace_moves_device emits)."""
-    from dnascent_tpu.ops import banded
-
-    rng = np.random.default_rng(7)
-    ne, nk, B = 400, 220, 3
-    # random plausible backward move stream per read, PAD-terminated
-    L = ne + nk + 2
-    rows = (L + 3) // 4
-    packed = np.full((rows, B), 0xFF, np.uint8)  # PAD everywhere
-    for col in range(B):
-        e, k = ne - 5, nk - 1
-        moves = []
-        while e > 0 and k > 0 and len(moves) < L - 1:
-            m = rng.choice([0, 0, 1, 2], p=[0.5, 0.2, 0.2, 0.1])
-            moves.append(m)
-            if m in (0, 1):
-                e -= 1
-            if m in (0, 2):
-                k -= 1
-        arr = np.full(rows * 4, 3, np.int64)
-        arr[: len(moves)] = moves
-        packed[:, col] = (arr[0::4] | (arr[1::4] << 2) | (arr[2::4] << 4)
-                          | (arr[3::4] << 6)).astype(np.uint8)
-
-    event_means = rng.normal(90, 10, ne)
-    scaled = rng.normal(90, 10, ne).astype(np.float32)
-    mu = rng.normal(90, 10, nk).astype(np.float32)
-    inv_sigma = (1.0 / rng.uniform(1.0, 3.0, nk)).astype(np.float32)
-    lp_const = rng.normal(-1.5, 0.2, nk).astype(np.float32)
-    q2r = rng.integers(-1, 200, nk).astype(np.int64)
-    rref = rng.integers(0, 4 ** 9, 200).astype(np.int64)
-
-    for col in range(B):
-        got = native.decode_moves(packed, col, ne - 5, nk, event_means,
-                                  scaled, mu, inv_sigma, lp_const, q2r, rref)
-        want = banded.decode_moves_host(packed, col, ne - 5, nk, event_means,
-                                        scaled, mu, inv_sigma, lp_const,
-                                        q2r, rref)
-        np.testing.assert_array_equal(got[0], want[0])       # pairs
-        np.testing.assert_allclose(got[1], want[1], rtol=1e-12)  # cleaned
-        np.testing.assert_array_equal(got[2], want[2])       # ranks
-        # summation-order noise only (numpy pairwise vs sequential)
-        assert abs(got[3] - want[3]) < 1e-6 * max(1.0, abs(want[3]))
-        assert got[4] == want[4] and got[5] == want[5]

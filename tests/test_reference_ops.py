@@ -2,7 +2,7 @@
 
 These validate that the oracle pipeline (event detection -> quantile scaling
 -> banded alignment -> Theil-Sen -> Viterbi) recovers the generative truth on
-synthetic reads, which pins down the semantics the TPU kernels must match.
+synthetic reads, which pins down the semantics the device kernels must match.
 """
 
 import numpy as np
